@@ -1,6 +1,6 @@
 # Convenience targets. The native C runtime builds via native/Makefile.
 
-.PHONY: test-fast test-full bench bench-live-refresh native
+.PHONY: test-fast test-full bench smoke native
 
 # Fast tier: every subsystem at toy size, minutes on CPU (docs/REGRESSION.md)
 test-fast:
@@ -9,17 +9,13 @@ test-fast:
 test-full:
 	python -m pytest tests/ -x -q
 
-# Full official bench (budget-capped; see bench.py header)
+# Full bench (budget-capped, needs a GPU; see bench.py header)
 bench:
 	python bench.py
 
-# Cheap post-merge guard (VERDICT r4 next#9): re-measure the headline case
-# (and SFS, the r4 regression watch) on the live chip and merge into the
-# committed BENCH_LIVE.json so perf claims never run ahead of the record.
-# Extend with CASES="poisson,sfs,arap" etc.
-CASES ?= poisson,sfs
-bench-live-refresh:
-	OPT_TPU_BENCH_CASES=$(CASES) BENCH_BUDGET_S=600 python bench.py
+# The main path once on one GPU, against plain references
+smoke:
+	python chip_smoke.py
 
 native:
 	$(MAKE) -C native

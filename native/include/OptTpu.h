@@ -1,4 +1,4 @@
-/* OptTpu.h — C API for the opt_tpu TPU-native nonlinear least squares
+/* OptTpu.h — C API for the opt_tpu nonlinear least squares
  * framework.
  *
  * Mirrors the reference Opt C API one-for-one
@@ -35,7 +35,7 @@ typedef struct {
     int doublePrecision;
     int verbosityLevel;
     int collectPerKernelTimingInfo;
-    int threadsPerBlock; /* accepted for compatibility; no TPU meaning */
+    int threadsPerBlock; /* accepted for compatibility; no meaning here */
 } Opt_InitializationParameters;
 
 Opt_State* Opt_NewState(Opt_InitializationParameters params);

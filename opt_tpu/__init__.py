@@ -1,11 +1,11 @@
-"""opt_tpu — a TPU-native nonlinear least-squares DSL and solver framework.
+"""opt_tpu — a nonlinear least-squares DSL and solver framework for JAX.
 
-A from-scratch re-design of the capabilities of niessner/Opt (reference at
-/root/reference) for TPUs: users write energy functions — sums of squared
-residual terms over image grids and hypergraphs — as plain Python spec
-functions; the framework derives matrix-free Gauss-Newton / Levenberg-
-Marquardt solvers with a Jacobi-preconditioned CG inner loop via JAX
-autodiff, compiled by XLA, shardable over TPU meshes with jax.sharding.
+A from-scratch re-design of the capabilities of niessner/Opt: users write
+energy functions — sums of squared residual terms over image grids and
+hypergraphs — as plain Python spec functions; the framework derives
+matrix-free Gauss-Newton / Levenberg-Marquardt solvers with a
+Jacobi-preconditioned CG inner loop via JAX autodiff, compiled by XLA, and
+shardable over device meshes with jax.sharding.
 
 Quick start::
 
@@ -25,7 +25,19 @@ Quick start::
 
 from __future__ import annotations
 
+import os
+
 import jax
+
+# JAX's persistent compilation cache. Where JAX_COMPILATION_CACHE_DIR is
+# set, JAX reads it itself and this sets nothing; otherwise the cache lives
+# at a fixed path beside the package, so every process of this checkout
+# finds what an earlier one compiled.
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 from .dims import Dim, IndexSpace
 from .lib import (

@@ -30,7 +30,7 @@ from .utils.logging import set_verbosity
 class OptState:
     """Opt_NewState (Opt.h:10-33): global configuration.
 
-    The reference's threadsPerBlock has no TPU analogue (XLA tiles work);
+    The reference's threadsPerBlock has no analogue here (XLA tiles work);
     collectPerKernelTimingInfo maps to the timing subsystem in utils/timer.
     """
 

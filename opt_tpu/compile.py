@@ -1,6 +1,6 @@
 """Problem compilation: spec tracing, residual classification, masking.
 
-TPU-native equivalent of the reference problem compiler (API/src/o.t):
+Equivalent of the reference problem compiler (API/src/o.t):
 
 * residual classification into centered (stencil) vs graph domains —
   reference ``classifyexpression`` (o.t:1895-1990); here derived by backward
@@ -150,7 +150,7 @@ class CompiledProblem:
                     if s == "valid":
                         # optional per-edge 0/1 validity mask (runtime
                         # input): deactivated edges contribute nothing —
-                        # the TPU analogue of the reference's runtime edge
+                        # the analogue of the reference's runtime edge
                         # count (util.t:728 guards idx < N at launch). A
                         # mask change never retraces or rebuilds tables.
                         m = jnp.asarray(i, self.dtype)
@@ -216,7 +216,7 @@ class CompiledProblem:
             self._sentinel_mag = s
         # verbosity>=1: surface that the semantic rewrite actually fired —
         # a spec whose *taken* branch consumes the sentinel silently changes
-        # answer, so clamping should never be invisible (VERDICT r3 weak#7).
+        # answer, so clamping should never be invisible.
         # Counting costs one reduction per bound array; skipped at
         # verbosity 0 and under tracing.
         import jax.core as _jcore
@@ -371,10 +371,11 @@ class CompiledProblem:
         (solverGPUGaussNewton.t:371,424,450...).
 
         Float (not bool) on purpose: masking on the solver hot path is done
-        multiplicatively. Boolean selects interleaved with the transposed
-        (``add_any``) stencil graph de-fuse catastrophically on the TPU
-        backend (~30x on the PCG inner loop), while multiplies fuse freely;
-        the masks are 0/1 constants so the arithmetic is exact."""
+        multiplicatively: boolean selects interleaved with the transposed
+        (``add_any``) stencil graph can break XLA's fusion, while multiplies
+        fuse freely (a choice from before the H100, not yet measured
+        there); the
+        masks are 0/1 constants so the arithmetic is exact."""
         if not self.registry.exclude_terms:
             return {}
         b = self._run("field", unknowns, consts, graphs, params, mesh=mesh)
@@ -426,7 +427,7 @@ class CompiledProblem:
 
         # sharded graph reads: ONE channel-stacked exchange per
         # (graph, slot) serves every image read there (collective latency
-        # is per-op on ICI — parallel/mesh.py grouped_slot_halo_gather)
+        # is per-op — parallel/mesh.py grouped_slot_halo_gather)
         halo_reads = {}
         if mesh is not None and getattr(mesh, "size", 1) > 1:
             from .parallel.mesh import grouped_slot_halo_gather

@@ -1,6 +1,6 @@
 """Named problem dimensions and index spaces.
 
-TPU-native analogue of the reference's ``opt.Dim`` / ``IndexSpace``
+Analogue of the reference's ``opt.Dim`` / ``IndexSpace``
 (reference: API/src/o.t:320-434). In the reference, dimension sizes are baked
 into generated PTX at plan time (``opt.dimensions[idx]``, o.t:320-324) and any
 size change forces a full Terra->PTX recompile. Here a :class:`Dim` is a pure
@@ -32,8 +32,8 @@ class IndexSpace:
     """An N-d rectangular index space: an ordered tuple of Dims.
 
     Mirrors the reference's ``IndexSpace`` (o.t:326-434) minus the CUDA
-    threadIdx mapping, which has no TPU analogue: element parallelism is
-    expressed as whole-array ops XLA tiles onto the VPU/MXU.
+    threadIdx mapping, which has no analogue here: element parallelism is
+    expressed as whole-array ops that XLA tiles onto the device.
     """
 
     def __init__(self, dims: Tuple[Dim, ...]):

@@ -3,7 +3,7 @@
 The reference can dump J to CSR and run the PCG inner loop as two sparse
 matvecs q = J·p, out = Jᵀ·q instead of the matrix-free fused apply
 (solverGPUGaussNewton.t:74-90, 215-218, 835-954; off by default there
-too). The TPU-native equivalent builds J as a ``jax.experimental.sparse``
+too). The equivalent here builds J as a ``jax.experimental.sparse``
 BCOO once per nonlinear iteration — the sparsity STRUCTURE is static (the
 stencil/graph incidence), only the values change with the linearization
 point — and applies JᵀJ·p as two BCOO matvecs.
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -124,15 +125,21 @@ def build_explicit_j(compiled, X, consts, graphs, params):
 
 
 def explicit_jtj_apply(compiled, J, row_masks):
-    """(JᵀJ)·p as two BCOO matvecs over the flattened unknown super-vector;
-    output rows masked like every other operator form."""
+    """(JᵀJ)·p as two sparse matvecs over the flattened unknown
+    super-vector; output rows masked like every other operator form. The
+    matvecs are written as f32 products plus segment sums, so no dot (and
+    no reduced-precision TF32 pass) is involved."""
+    rows, cols = J.indices[:, 0], J.indices[:, 1]
+    n_rows, n_cols = J.shape
 
     def apply_fn(p: Dict[str, jnp.ndarray]) -> Dict[str, jnp.ndarray]:
         flat = jnp.concatenate(
             [p[u].reshape(-1) for u in compiled.unknown_names]
         )
-        q = J @ flat
-        out_flat = J.T @ q
+        q = jax.ops.segment_sum(J.data * flat[cols], rows, num_segments=n_rows)
+        out_flat = jax.ops.segment_sum(
+            J.data * q[rows], cols, num_segments=n_cols
+        )
         out = {}
         o = 0
         for u in compiled.unknown_names:

@@ -34,7 +34,7 @@ from .ops.shift import shift_adjoint
 
 def _mask_rows(x: Dict[str, jnp.ndarray], row_masks) -> Dict[str, jnp.ndarray]:
     # row_masks are 0/1 floats; multiplication (not select) keeps the masking
-    # fused with the transposed stencil graph on TPU (see
+    # fused with the transposed stencil graph (see
     # CompiledProblem.exclusion_masks).
     out = {}
     for k, v in x.items():
@@ -273,8 +273,8 @@ class FunctionSet:
                          coeff_dtype=None):
         """(apply_fn, diag, jtf_fn, cg_meta): row/column-masked JᵀJ·p in
         assembled gather form, the Jacobi diagonal read off the Δ=0 fields,
-        a JᵀF evaluator, and the fused-Pallas-CG descriptor (or None). The
-        TPU equivalent of the reference's fused createjtjcentered/
+        a JᵀF evaluator, and the stencil kernel's inputs (or None). The
+        equivalent of the reference's fused createjtjcentered/
         createjtjgraph/evalJTF kernels (o.t:2029-2172). ``mesh`` activates
         the owner-block neighbor exchange for graph cross-endpoint reads;
         ``coeff_dtype`` narrows the loop-resident coefficient storage

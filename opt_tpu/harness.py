@@ -1,6 +1,6 @@
 """Example-app harness: multi-solver runs, per-iteration records, reports.
 
-TPU-native equivalent of the reference's C++ example harness
+Equivalent of the reference's C++ example harness
 (examples/shared/CombinedSolverBase.h, SolverIteration.h, OptUtils.h):
 
 * :class:`CombinedSolverBase` — template-method driver running N registered
@@ -250,7 +250,7 @@ class CombinedSolverBase:
         # legacy compatibility: prior rounds (and external consumers) read
         # the fixed results_<suffix>.csv path; mirror the per-example file
         # there for one release so the rename doesn't silently 404 them
-        # (ADVICE r3). The mirror holds whichever example saved last, as
+        #. The mirror holds whichever example saved last, as
         # the old shared file did.
         if name:
             legacy = os.path.join(directory, f"results_{suffix}.csv")

@@ -1,6 +1,6 @@
 """DSL standard library — the helpers visible in reference energy specs.
 
-TPU-native equivalent of API/src/lib.t: ``Select``, ``All/Any/Not``,
+Equivalent of API/src/lib.t: ``Select``, ``All/Any/Not``,
 comparison helpers, ``Rotate2D/3D``, vector math, robust norms. All of these
 operate on ordinary ``jnp`` arrays with a trailing channel axis, so they are
 usable both inside spec functions and in normal JAX code.
@@ -12,6 +12,7 @@ port with minimal edits.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from .spec import current_builder
@@ -183,16 +184,23 @@ def RotationMatrix3D(angles):
     return jnp.stack(rows, axis=-2)
 
 
+def _mat3_vec(R, v):
+    # per-element 3x3 · 3-vector at full float32: at default precision the
+    # batched dot could run as TF32 on tensor cores and lose digits inside
+    # the residuals
+    return jnp.einsum(
+        "...ij,...j->...i", R, v, precision=jax.lax.Precision.HIGHEST
+    )
+
+
 def Rotate3D(angles, v):
     """Rotate [...,3] vectors by per-element Euler angles [...,3] (lib.t:77-91)."""
-    R = RotationMatrix3D(angles)
-    return jnp.einsum("...ij,...j->...i", R, v)
+    return _mat3_vec(RotationMatrix3D(angles), v)
 
 
 def Matrix3x3Mul(m, v):
     """m: [..., 9] row-major 3x3; v: [..., 3] (lib.t Matrix3x3Mul)."""
-    R = m.reshape(m.shape[:-1] + (3, 3))
-    return jnp.einsum("...ij,...j->...i", R, v)
+    return _mat3_vec(m.reshape(m.shape[:-1] + (3, 3)), v)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,9 @@
 """Hypergraph gather/scatter primitives.
 
-TPU-native replacement for the reference's per-edge CUDA kernels with
-``atomicAdd`` scatters into unknown-shaped arrays (reference:
-API/src/o.t:558-567 ``atomicAddChannel``; o.t:2092-2126 ``createjtjgraph``).
-TPUs have no global-memory atomics exposed at this level; instead an edge-wise
-gather is ``jnp.take`` and the scatter-add is ``jax.ops.segment_sum``-style
+Replacement for the reference's per-edge CUDA kernels with ``atomicAdd``
+scatters into unknown-shaped arrays (reference: API/src/o.t:558-567
+``atomicAddChannel``; o.t:2092-2126 ``createjtjgraph``). JAX exposes no
+global-memory atomics at this level; instead an edge-wise gather is ``jnp.take`` and the scatter-add is ``jax.ops.segment_sum``-style
 ``.at[].add`` which XLA lowers to an efficient sorted scatter. Under autodiff,
 ``take``'s transpose is exactly the scatter-add, so JᵀF / JᵀJp scatters come
 out of ``jax.vjp``/``jax.linear_transpose`` for free.
@@ -86,8 +85,8 @@ def combined_incidence_table(idx_list, num_vertices: int):
     space: [N, D_total] table of row ids into the stacked per-slot edge-row
     matrix (slot k's edge e ↦ row k*E + e), sentinel-padded with
     n_slots*E. One gather through this table accumulates every slot's
-    contributions at once — gather cost on TPU is per row, so packing slots
-    (and unknown channels) into shared rows is the whole ballgame.
+    contributions at once; gather cost is per row, so slots (and unknown
+    channels) are packed into shared rows.
     """
     import numpy as np
 
@@ -117,8 +116,7 @@ def combined_cross_table(idx_list, num_vertices: int, inc=None):
     to ``num_vertices`` (a zero row in the extended p array).
 
     One gather through this table replaces the m·(m-1) per-ordered-slot-pair
-    ELL gathers: gather cost on TPU is per row, so packing all cross
-    endpoints of a vertex's incidences into shared rows is the win.
+    ELL gathers: all cross endpoints of a vertex's incidences share rows.
     """
     import numpy as np
 
@@ -272,8 +270,7 @@ def ell_tables(idx_by_slot, num_vertices_by_slot, width_bucket=None):
     broadcast of p[v], no gather at all. This turns the accumulation side of
     the per-edge JᵀJ into plain reshapes + reductions; only cross-slot
     couplings gather, and they gather from the small [N, C] vertex array
-    (VMEM-resident) instead of the [E, C] edge array in HBM — measured ~3x
-    cheaper per row.
+    instead of the [E, C] edge array.
     """
     import numpy as np
 
@@ -311,9 +308,10 @@ def incidence_table(idx, num_vertices: int):
     incident to each vertex, padded with the sentinel E (= len(idx)).
 
     Host-side preprocessing of the static graph that converts the solver's
-    per-edge scatter-adds into gathers (out[v] = Σ_d contrib[inc[v, d]]),
-    which on TPU are ~7x faster than scatters — the atomics-free analogue of
-    the reference's atomicAdd accumulation (o.t:2092-2126). The reference's
+    per-edge scatter-adds into gathers (out[v] = Σ_d contrib[inc[v, d]]) —
+    the atomics-free analogue of the reference's atomicAdd accumulation
+    (o.t:2092-2126); not yet measured against atomics on the H100
+    (ROADMAP design item 3). The reference's
     CSR converter createGraphFromNeighborLists (OptGraph.h:64-75) does the
     inverse transform on the CPU for the same reason: structure is static.
     """
@@ -332,68 +330,3 @@ def incidence_table(idx, num_vertices: int):
     pos = np.arange(E) - starts[sorted_v]
     table[sorted_v, pos] = order
     return table
-
-
-def fold_lanes(n: int, lanes: int = 512) -> int:
-    """Lane width of the fused graph kernel's [R, L] vertex fold — must
-    match pallas_cg.plan_fused_graph_cg so bind-time window plans align
-    with the in-kernel layout."""
-    return min(lanes, max(128, n))
-
-
-def onehot_tile_plan(rem_cross, num_vertices: int, lanes: int, tile: int = 128):
-    """Bucket the irregular DIA remainder into (dst-window, src-window)
-    pairs of ``lanes``-wide vertex-id windows, padded to ``tile``-entry
-    tiles — the host-side plan for the in-kernel one-hot-matmul remainder
-    apply (ops/pallas_cg.py).
-
-    The TPU has no hardware gather: per-row gathers cost ~4 ns/row and
-    dominate an irregular-mesh CG iteration (measured: 1.10 ms/iter at 31k
-    vertices vs 0.004 on a grid mesh). After a locality reorder
-    (utils/reorder.grid_embed_order), the remainder's (v//L, u//L) window
-    pairs are few and dense (armadillo31k: 331 pairs for 79k reads at
-    L=512) — so the gather becomes, per pair, a lane-selection ONE-HOT
-    MATMUL against the source window row of the kernel's VMEM-resident
-    [R, L] fold, and the scatter-add back is the transposed one-hot
-    matmul. Both ride the MXU; the reference's equivalent is per-edge
-    atomics (solverGPUGaussNewton.t:684-760).
-
-    ``rem_cross``: [N, Dm] int32 dedup'd cross ids (sentinel
-    ``num_vertices``). Returns ``(pairs, table)`` where ``pairs`` is a
-    tuple of (rv, ru, n_tiles) in row-major (rv, ru) order and ``table``
-    is [total_tiles, 3, tile] int32 with rows (src_local, dst_local,
-    flat block index v·Dm + d); padding entries carry (-1, -1, N·Dm) —
-    the -1 never matches the in-kernel iota and N·Dm reads the appended
-    zero block row. Returns None when there is no remainder.
-    """
-    import numpy as np
-
-    rc = np.asarray(rem_cross)
-    n, dm = rc.shape
-    if dm == 0 or n == 0:
-        return None
-    vv, dd = np.nonzero(rc < num_vertices)
-    if vv.size == 0:
-        return None
-    src = rc[vv, dd].astype(np.int64)
-    rv = vv // lanes
-    ru = src // lanes
-    order = np.lexsort((src, vv, ru, rv))
-    vv, dd, src, rv, ru = vv[order], dd[order], src[order], rv[order], ru[order]
-    pair_key = rv * (num_vertices // lanes + 2) + ru
-    starts = np.flatnonzero(np.r_[True, pair_key[1:] != pair_key[:-1]])
-    ends = np.r_[starts[1:], pair_key.size]
-    pairs = []
-    blobs = []
-    for s, e in zip(starts, ends):
-        cnt = e - s
-        nt = -(-cnt // tile)
-        arr = np.full((nt * tile, 3), -1, np.int64)
-        arr[:, 2] = n * dm  # sentinel block row
-        arr[:cnt, 0] = src[s:e] % lanes
-        arr[:cnt, 1] = vv[s:e] % lanes
-        arr[:cnt, 2] = vv[s:e] * dm + dd[s:e]
-        pairs.append((int(rv[s]), int(ru[s]), int(nt)))
-        blobs.append(arr.reshape(nt, tile, 3).transpose(0, 2, 1))
-    table = np.concatenate(blobs, axis=0).astype(np.int32)
-    return tuple(pairs), table

@@ -1,10 +1,10 @@
 """Zero-padded stencil shifts on grid images and their adjoints.
 
-These are the TPU-native replacement for the reference's per-thread offset
-indexing + zero-padding ``Image:get`` (reference: API/src/o.t:570-576) and for
-the bindless-texture gathers (o.t:469-501) — TPUs have no texture units, so
-stencil reads become whole-array pad+slice ops that XLA fuses and, under a
-sharded mesh, lowers to halo exchanges over ICI automatically.
+These replace the reference's per-thread offset indexing + zero-padding
+``Image:get`` (reference: API/src/o.t:570-576) and its bindless-texture
+gathers (o.t:469-501): stencil reads become whole-array pad+slice ops that
+XLA fuses and, under a sharded mesh, lowers to halo exchanges (collective
+permutes) automatically.
 
 Conventions
 -----------

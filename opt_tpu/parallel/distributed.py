@@ -1,15 +1,17 @@
-"""Multi-host (DCN) initialization glue.
+"""Multi-host initialization glue.
 
 The reference is single-process (SURVEY §2.4); scaling opt_tpu beyond one
 host uses jax.distributed: every host runs the same program, sees the global
-device set, and the solver's sharded arrays span hosts transparently (grid
-tiles ride ICI within a slice; DCN carries the cross-host collectives XLA
-inserts). This module is the thin, idempotent bootstrap.
+device set, and the solver's sharded arrays span hosts transparently (XLA
+inserts the collectives, NCCL on GPUs). This module is the thin, idempotent
+bootstrap.
 
-Typical use on a TPU pod slice (one process per host):
+Typical use (one process per host; pass the coordinator explicitly where
+no cluster environment describes it):
 
     import opt_tpu.parallel.distributed as dist
-    dist.initialize()                       # env-driven on Cloud TPU
+    dist.initialize(coordinator_address="host0:1234",
+                    num_processes=2, process_id=0)
     mesh = make_mesh()                      # all global devices
     plan = problem.plan(dims=..., mesh=mesh)
 

@@ -5,7 +5,8 @@ new design with no reference counterpart. Strategy (BASELINE.json north_star):
 
 * grid index spaces shard by spatial tiles over a 2-D ('gx','gy') mesh; the
   zero-padded shift ops in ops/shift.py lower to XLA SPMD halo exchanges over
-  ICI automatically, so stencil JᵀJp needs no hand-written communication.
+  collective permutes automatically, so stencil JᵀJp needs no hand-written
+  communication.
 * graph index spaces shard hyperedges over the flattened mesh; vertex arrays
   (unknowns) shard by contiguous owner blocks along axis 0, and the ELL/
   incidence tables (problem.Plan._augment_incidence) shard by the same
@@ -365,7 +366,7 @@ def slot_halo_gather(mesh, arr, g_dict, slot):
 def grouped_slot_halo_gather(mesh, items, g_dict, slot):
     """Serve several [N, C_i] vertex arrays' per-edge reads at ONE
     (graph, slot) with one exchange by channel-stacking: collective
-    latency on ICI is per-op, and e.g. ARAP reads three arrays (Offset,
+    latency is per-op, and e.g. ARAP reads three arrays (Offset,
     Angle, UrShape) at each endpoint slot. ``items`` = [(name, arr)].
     Returns {name: [E, C_i]} or None when the tables are absent / an
     array is not a plain [N, C] (callers fall back to per-array takes).

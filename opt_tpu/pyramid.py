@@ -6,7 +6,7 @@ unknowns on the CPU, and launches a fresh solve per level
 (optical_flow/src/CombinedSolver.h:22-61). On a latency-bound rig every
 level pays full dispatch + transfer round-trips.
 
-TPU-native redesign: all levels run inside ONE jitted XLA program. Each
+Redesign: all levels run inside ONE jitted XLA program. Each
 level's fused solve (`GaussNewtonSolver._solve_core` — itself a
 `lax.while_loop` over GN/LM steps) is chained with a user-supplied
 device-side prolongation between levels. Shapes per level are static, so

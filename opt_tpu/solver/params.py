@@ -49,11 +49,13 @@ class InitializationParameters:
     # exact); on mismatch the plan silently falls back to the composed
     # operator. Costs one extra small compile per plan.
     validate_fused_jtj: bool = True
-    # Fused multi-iteration CG as one Pallas kernel for VMEM-sized 2-D grid
-    # problems with channel-identical stencil couplings (ops/pallas_cg.py).
-    # "auto": enabled on TPU backends when the assembled operator qualifies;
-    # True/False force it on/off; "interpret" runs the kernel in Pallas
-    # interpret mode (any backend — used by tests for CPU parity).
+    # CG apply of 2-D grid stencils as one Pallas kernel through Triton
+    # (ops/stencil_kernel.py): JᵀJ·p fused with its pᵀAp partials, on a
+    # channel-major layout. "auto": on CUDA devices when the assembled
+    # operator qualifies (Plan.cg_path says which apply ran, and
+    # Plan.cg_path_reason why not); True forces it (an error on any other
+    # backend); False turns it off; "interpret" runs the same kernel
+    # through the Pallas interpreter (CPU tests).
     use_pallas_cg: Any = "auto"
     # Explicit sparse-J path (the reference's optional use_cusparse branch,
     # solverGPUGaussNewton.t:74-90 — off by default there too): build J as
@@ -89,7 +91,7 @@ class InitializationParameters:
     # so all THREE per-iteration dots ride one all-reduce; LM's residual
     # reset recomputes r on the reference period (the α-denominator
     # recurrence itself is not reset).
-    # Default "auto" (VERDICT r3 #5): single device -> "standard" (the two
+    # Default "auto": single device -> "standard" (the two
     # on-chip reductions are ~free; the reference recurrence's rounding is
     # the golden-pinned one); mesh with >1 device -> "chronopoulos_gear"
     # (one all-reduce per CG iteration instead of two). Explicit values
@@ -105,10 +107,11 @@ class InitializationParameters:
     # inverted, modeling the trust-region operator exactly per element
     # (the reference's scalar Jacobi-scaling pipeline applies only to the
     # scalar mode). The composed/explicit paths use scalar Jacobi.
-    # Default "auto" (VERDICT r3 #5): single device -> "jacobi" (a fused
-    # Pallas CG iteration costs ~5 µs, so trading iterations for per-apply
-    # block matvecs is a measured single-chip wall-clock LOSS — ARAP 0.316
-    # vs 0.171 s whole-solve); mesh with >1 device -> "block_jacobi"
+    # Default "auto": single device -> "jacobi" (a CG iteration is cheap
+    # there, so trading iterations for per-apply block matvecs was a
+    # wall-clock loss on earlier hardware; not yet measured on the
+    # H100); mesh with
+    # >1 device -> "block_jacobi"
     # (each CG iteration costs latency-bound collectives, so the −60–70%
     # iteration count is the communication-optimal choice; harmlessly
     # equals scalar Jacobi when the Δ=0 block is diagonal, and falls back
@@ -125,7 +128,7 @@ class InitializationParameters:
     # sorting collapses it toward the true boundary. It perturbs the
     # per-edge float reduction order (golden-cost drift) and dumpJ's
     # per-edge row order, so it stays off without a mesh.
-    # Default "auto" (VERDICT r3 #5): False on a single device or for
+    # Default "auto": False on a single device or for
     # grid-only problems; "owner" for graph problems on a mesh with >1
     # device. Explicit values override.
     edge_reorder: Any = "auto"
@@ -135,28 +138,22 @@ class InitializationParameters:
     # coefficient accumulation gathers the NARROW raw probe columns into
     # incidence space ([N, D, r·P] elements) and builds the coupling blocks
     # post-gather via static placement matmuls, instead of gathering wide
-    # pre-stacked coefficient rows ([m·E, m·Ct²] elements). In isolated
-    # piece timings this cuts the gather cost ~7x, but in the fused
-    # whole-solve program XLA sinks the flat→[N, ct, ct] field reshape into
-    # the CG while body and pays a tile-relayout copy EVERY linear
-    # iteration (interleaved A/B at 147k edges: 7.33 ms vs 0.074 ms per CG
-    # iteration, scripts/ab_arap.py) — so the stacked-row path stays the
-    # default until the apply consumes flat fields reshape-free. Parity is
-    # pinned by tests either way. Single-device path; meshes always use
-    # the stacked-row exchange.
+    # pre-stacked coefficient rows ([m·E, m·Ct²] elements). It lost on earlier
+    # hardware, where XLA sank the flat→[N, ct, ct] field reshape into the CG
+    # while body; not yet measured on the H100 (ROADMAP design item 4).
+    # Parity is pinned by tests either way. Single-device path; meshes
+    # always use the stacked-row exchange.
     aligned_graph_assembly: bool = False
     # EXPERIMENTAL, no reference counterpart: store the assembled JᵀJ
     # coefficient fields in a narrower dtype ("bfloat16") while all CG
     # state, dots and the Jacobi diagonal stay in the solve dtype. The CG
-    # hot loop is HBM-bandwidth-bound on the coefficient reads, so halving
-    # their bytes is a direct TPU lever; the inner solve then runs on a
+    # hot loop reads the coefficients every iteration, so halving their
+    # bytes halves that traffic; the inner solve then runs on a
     # ~3-decimal-digit perturbation of JᵀJ, which the exact per-outer-step
     # JᵀF turns into iterative refinement (outer GN/LM corrects the inner
     # error; final costs match f32 on well-conditioned problems). None =
-    # full precision. The fused Pallas CG kernel stores its weight fields
-    # in this dtype too, where the win is VMEM capacity: bf16 fields let
-    # ~2x-larger grids stay in the fused path. On stiff graph energies
-    # (ARAP-style
+    # full precision. The stencil kernel stores its fields in this dtype
+    # too. On stiff graph energies (ARAP-style
     # near-singular rotation directions) pair it with LM: plain GN accepts
     # every step and the perturbed directions can be non-descent
     # (tests/test_bf16_coefficients.py).
@@ -167,14 +164,14 @@ def resolve_auto_policy(
     ip: "InitializationParameters", n_devices: int, has_graphs: bool
 ) -> "InitializationParameters":
     """Resolve the "auto" solver-variant flags per execution regime
-    (VERDICT r3 #5). The reference ships ONE hardcoded kernel config; a
-    TPU-first framework's defaults ARE its design, so the
+    The reference ships ONE hardcoded kernel config; here the defaults
+    are part of the design, so the
     communication-relevant switches pick themselves from the static facts
     available at plan time — device count and domain kind:
 
-    * single device: "standard" CG (on-chip reductions are free),
-      scalar "jacobi" (a fused CG iteration costs ~5 µs; block matvecs per
-      apply are a measured wall-clock loss there), no edge reorder
+    * single device: "standard" CG (on-device reductions are cheap),
+      scalar "jacobi" (block matvecs per apply were a wall-clock loss on
+      earlier hardware; not yet measured on the H100), no edge reorder
       (preserves the reference's per-edge reduction order, golden-pinned);
     * mesh with >1 device: "chronopoulos_gear" (ONE all-reduce per CG
       iteration — the three LM dots share it), "block_jacobi" (CG

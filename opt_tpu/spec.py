@@ -1,6 +1,6 @@
 """The energy DSL: spec tracing, accessors, and slot recording.
 
-This is the TPU-native replacement for the reference's Lua-embedded DSL
+This is the replacement for the reference's Lua-embedded DSL
 front-end + symbolic CAS (reference: API/src/lib.t, API/src/ad.t,
 API/src/o.t:930-1057 ``ProblemSpecAD``). Instead of building a hash-consed
 expression DAG and symbolically differentiating it (ad.t:612-660), a user spec

@@ -3,7 +3,7 @@
 The reference has no in-library checkpointing (SURVEY §5): its stepwise API
 (Opt_ProblemInit / Opt_ProblemStep, Opt.h:59-66) only lets the host inspect
 unknowns between outer iterations, and im.t offers a raw image dump. For a
-multi-host TPU deployment, long solves (or outer schedules such as pyramids
+multi-host deployment, long solves (or outer schedules such as pyramids
 and constraint annealing) need real save/restore, so this module provides it
 natively:
 
@@ -92,7 +92,7 @@ def restore(path: str, plan, inputs: Optional[Dict[str, Any]] = None):
         plan._bound = (consts, graphs, params)
     elif plan._bound is None:
         # a fresh plan has no bound constants; stepping would crash deep in
-        # the solver unpacking None (ADVICE r1) — fail here with the remedy.
+        # the solver unpacking None — fail here with the remedy.
         raise RuntimeError(
             "restore() into a freshly constructed plan requires the problem "
             "inputs: checkpoints persist solver state (unknowns, trust "

@@ -1,6 +1,6 @@
 """Data IO: images, meshes, constraint files, imagedumps.
 
-TPU-native replacement for the reference example harness's IO stack (mLib
+Replacement for the reference example harness's IO stack (mLib
 PNG loading, OpenMesh .ply/.off/.obj, the .imagedump raw format from
 API/src/im.t, and per-example constraint files). Pure numpy parsers; PIL is
 used only for PNG codec work.

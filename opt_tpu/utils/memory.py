@@ -2,7 +2,7 @@
 
 The reference queries cudaMemGetInfo and prints used/free/total; here the
 JAX device memory stats (when the backend exposes them) plus a live-buffer
-census give the same observability for TPU HBM.
+census give the same observability for device memory.
 """
 
 from __future__ import annotations

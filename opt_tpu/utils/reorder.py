@@ -1,7 +1,6 @@
 """Vertex reordering for graph problems.
 
-The DIA-hybrid cross-coupling apply (ops/graph_ops.dia_split,
-docs/PERFORMANCE.md) turns gathers into shifted adds when cross-endpoints
+The DIA-hybrid cross-coupling apply (ops/graph_ops.dia_split) turns gathers into shifted adds when cross-endpoints
 concentrate at a few vertex-id offsets — a property of the NUMBERING, not
 the mesh. Meshes loaded from files often come with low-locality numbering;
 reverse Cuthill-McKee (RCM) renumbering concentrates neighbors into a

@@ -1,6 +1,6 @@
 """Solver profiling: per-phase timing tables and per-iteration lines.
 
-TPU analogue of the reference's CUDA-event timer (util.t:404-511): when
+Analogue of the reference's CUDA-event timer (util.t:404-511): when
 per-kernel timing is requested the reference wraps every kernel launch in
 cudaEvents and prints an aggregate table plus machine-greppable ``TIMING``
 and ``Per-iter times ms (nonlinear, linear)`` lines.

@@ -3,7 +3,7 @@
 
 Each example's stdout goes to <out>/<name>.log; the '**Final Costs**' blocks
 can then be diffed across runs with scripts/print_all_costs.py, exactly the
-reference's partially-automated regression flow (CHANGELOG.md 0.2.1).
+reference's partially-automated regression flow.
 """
 
 import argparse

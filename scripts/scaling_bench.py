@@ -1,16 +1,17 @@
 """Multi-chip scaling benchmark (BASELINE.json north_star harness).
 
 Measures GN iterations/s and PCG iterations/s for the flagship problems on a
-device mesh of each size 1..N and reports strong-scaling efficiency. On real
-TPU slices run it as-is; without multi-chip hardware, validate the sharded
-program end-to-end on virtual CPU devices:
+device mesh of each size 1..N and reports strong-scaling efficiency. On a
+multi-GPU host run it as-is; without one, validate the sharded program
+end-to-end on virtual CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python scripts/scaling_bench.py --sizes 1,2,4,8 --n 256
 
-(CPU timings say nothing about ICI; the point of the CPU run is that the
-sharded solve compiles, executes, and matches the single-device cost. The
-same script on a pod slice produces the real scaling table.)
+(CPU timings say nothing about the interconnect; the point of the CPU run
+is that the sharded solve compiles, executes, and matches the
+single-device cost. The same script on several GPUs produces the real
+scaling table.)
 """
 
 from __future__ import annotations

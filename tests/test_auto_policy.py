@@ -1,4 +1,4 @@
-"""Auto-selection of solver variants per execution regime (VERDICT r3 #5).
+"""Auto-selection of solver variants per execution regime.
 
 The reference ships one hardcoded kernel configuration
 (solverGPUGaussNewton.t:19-39); here the communication-relevant switches

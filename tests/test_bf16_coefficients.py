@@ -1,8 +1,7 @@
 """bfloat16 coefficient storage (InitializationParameters.coefficient_dtype).
 
-The CG hot loop is HBM-bound on the assembled coefficient reads; storing
-them in bf16 halves that traffic (a TPU lever with no reference
-counterpart). Numerically the inner CG then solves a ~3-decimal-digit
+The CG hot loop reads the assembled coefficients every iteration; storing
+them in bf16 halves that traffic (no reference counterpart). Numerically the inner CG then solves a ~3-decimal-digit
 perturbation of JᵀJ while JᵀF stays exact per outer iteration, so the
 outer GN/LM loop acts as iterative refinement — final costs must land on
 the f32 results on these well-conditioned problems.

@@ -103,7 +103,7 @@ def test_checkpoint_rejects_mismatched_plan(tmp_path):
 
 
 def test_restore_fresh_plan_without_inputs_raises(tmp_path):
-    """Regression (ADVICE r1): restoring into a fresh plan without inputs
+    """Regression: restoring into a fresh plan without inputs
     left plan._bound None, so the documented step() resume crashed with a
     TypeError deep in the solver. It must fail fast with the remedy."""
     n = 8

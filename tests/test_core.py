@@ -299,7 +299,7 @@ def test_lm_decreases_cost_nonlinear():
 
 @pytest.mark.parametrize("fused", [True, False])
 def test_lm_with_exclude_solves(fused):
-    """Regression (ADVICE r1): multiplicative row-masking of the LM damping
+    """Regression: multiplicative row-masking of the LM damping
     diagonal produced inf*0=NaN at excluded rows (diag(JᵀJ)=0 ⇒ SSq=0 ⇒
     invS=inf ⇒ ctc=inf), so A(p) went NaN and every trust-region step was
     rejected. LM on an Exclude problem must decrease cost and agree with GN."""
@@ -328,7 +328,7 @@ def test_lm_with_exclude_solves(fused):
 
 
 def _gated_spec(S):
-    # ADVICE r1 repro: the fit coupling is gated on greater(D, 2.0); real
+    # repro: the fit coupling is gated on greater(D, 2.0); real
     # data has D=3.0 (gate open) but the round-1 probe distribution
     # ({0,1,-1} ∪ U(0.3,1.7)) never exceeded 2.0, so the coupling was
     # silently pruned from the assembled JᵀJ and the fused path NaN'd.

@@ -1,4 +1,4 @@
-"""x64 golden sweep (VERDICT r2 #7): grid LM, graph GN, the assembled
+"""x64 golden sweep: grid LM, graph GN, the assembled
 operator and the Pallas-kernel fallback all run under double precision.
 
 The reference converts any example to double per-solve

@@ -6,7 +6,7 @@ random thresholds, ComputedArrays, Excludes, graph terms — and checks the
 fused assembled operator (with its probe-based structural-zero pruning and
 threshold-aware probe values) against the dense Jacobian. This is the
 systematic defense for the probe heuristic that replaced the reference's
-exact symbolic zero elimination (polysimplify, ad.t:803-926; ADVICE r1).
+exact symbolic zero elimination (polysimplify, ad.t:803-926).
 Deterministic: every spec derives from a fixed seed.
 """
 
@@ -278,7 +278,7 @@ def test_fuzz_sampled_image_assembled_jtj(seed):
 
 
 def _random_traced_gate_spec(rng):
-    """Adversarial class (VERDICT r2 #6): array-vs-array comparison gates
+    """Adversarial class: array-vs-array comparison gates
     whose threshold sits far outside every probe value, so the gate is
     FROZEN under the probe distribution (nothing literal to straddle —
     ``_comparison_constants`` cannot harvest it) but ACTIVE at the real
@@ -316,7 +316,7 @@ def test_fuzz_traced_gate_not_pruned(seed):
 
 
 def _random_maxmin_gate_spec(rng):
-    """Adversarial class (ADVICE r3): jnp.maximum/minimum with two traced
+    """Adversarial class: jnp.maximum/minimum with two traced
     operands gate the Jacobian exactly like array-vs-array comparisons —
     their derivative is a select with no literal threshold for the probes
     to straddle. Build a min() whose coupling branch is frozen OFF under
@@ -429,7 +429,7 @@ def test_traced_gate_detector_flags_and_keeps_coupling():
 
 
 def _random_pwconst_gate_spec(rng):
-    """Adversarial class (VERDICT r3 weak#6): piecewise-constant factors
+    """Adversarial class: piecewise-constant factors
     (floor / sign / ceil / float->int cast) gate the Jacobian with no
     literal threshold anywhere — every integer is a breakpoint. Each
     construction makes the coupling coefficient IDENTICALLY ZERO under the
@@ -527,7 +527,7 @@ def test_pwconst_detector_flags_and_custom_jvp_exempt():
 
 
 def _computed_gate_frozen_spec(rng):
-    """Adversarial class (VERDICT r3 #8): the gate compares a COMPUTED
+    """Adversarial class: the gate compares a COMPUTED
     array (per-iteration ComputedArray value) against another traced value
     with no literal threshold — frozen OFF under the probe distribution,
     taken at the real inputs."""
@@ -566,7 +566,7 @@ def test_fuzz_computed_gate_not_pruned(seed):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_fuzz_unknown_dependent_exclude_solve(seed):
-    """Masks that change between assembly and apply (VERDICT r3 #8): an
+    """Masks that change between assembly and apply: an
     Exclude on the UNKNOWN re-evaluates per GN step as X moves. The
     assembled fast path must track the composed operator (use_fused_jtj=
     False) through a short solve — same per-iteration costs and unknowns."""

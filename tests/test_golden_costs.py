@@ -1,4 +1,4 @@
-"""Medium-size golden final-cost pins for every bundled energy (VERDICT r1).
+"""Medium-size golden final-cost pins for every bundled energy.
 
 The toy-size operator-parity tests (test_specs.py, test_operator_parity.py)
 prove the operators; these pin END-TO-END final costs at medium sizes so a

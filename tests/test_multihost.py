@@ -1,7 +1,7 @@
 """True multi-process (multi-host analogue) solve: two processes, each with
 4 virtual CPU devices, form one 8-device global mesh via jax.distributed
-(parallel/distributed.py) — the same code path a TPU pod slice uses over
-DCN. Both processes must agree with each other and with the single-process
+(parallel/distributed.py) — the same code path a multi-host deployment
+uses. Both processes must agree with each other and with the single-process
 solve (SURVEY §2.4 / BASELINE north star: ≥2-host scaling path)."""
 
 import os
@@ -53,7 +53,7 @@ print("MHCOST", pid, repr(float(res.final_cost)), flush=True)
 
 # graph domain with shuffled vertex ids: the CG loop's cross-endpoint read
 # takes the owner-block halo exchange (all_to_all over the 2-process global
-# mesh -- the DCN path for graph problems)
+# mesh -- the multi-host path for graph problems)
 from opt_tpu.models.specs import arap_mesh_deformation
 ga = __import__("importlib").import_module("_arap_shared")
 N, ginputs = ga.shuffled_arap_inputs()

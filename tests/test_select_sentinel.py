@@ -1,4 +1,4 @@
-"""Select condition-block semantics with non-finite sentinels (VERDICT r1 #3).
+"""Select condition-block semantics with non-finite sentinels.
 
 The reference compiles ``ad.select`` into real condition blocks so the
 untaken branch is never evaluated (o.t:1634-1650); its example apps rely on
@@ -157,8 +157,8 @@ def test_inf_sentinels_in_unknowns_solve_and_restore():
 
 
 def test_sentinel_clamp_warning_at_verbosity(capsys):
-    """Clamping ±inf sentinels is a quiet semantic rewrite (VERDICT r3
-    weak#7): at verbosity>=1 the bind must report that it fired (count +
+    """Clamping ±inf sentinels is a quiet semantic rewrite: at verbosity>=1
+    the bind must report that it fired (count +
     magnitude); at verbosity 0 it stays silent."""
     from opt_tpu.utils.logging import set_verbosity
 
